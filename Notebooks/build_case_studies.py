@@ -40,9 +40,10 @@ print(len(seqA), len(seqB))""")
 md("""## DNA-Polymerase-1, full pair (928 x 933)
 
 The reference Cython engine fills this band in **626.7 s** at max_shift 1
-(its `bialign.ipynb` cell 5).  The wavefront engine (auto = Pallas on TPU,
-XLA elsewhere) fills it in milliseconds; end-to-end below includes
-traceback + 14-line decode.""")
+(its `bialign.ipynb` cell 5).  The wavefront engine (auto = the platform's
+choice, see `bialign_tpu.backend`) fills and walks it in about 0.11 s on
+one H100 (PERF.md); end-to-end below also includes table building and the
+14-line decode.""")
 
 code("""params = dict(type="Protein", structure_weight=800, simmatrix="BLOSUM62",
               gap_opening_cost=-150, gap_cost=-50, shift_cost=-150,
@@ -79,18 +80,13 @@ md("""## Linear-memory (checkpointed) band mode
 
 `lowmem=True` stores only O(sqrt(D)) scan checkpoints and rematerializes
 band blocks during traceback — bit-identical output, ~14x less device
-memory on the full pair.  With `engine="pallas"` the checkpoint-emitting
-Pallas kernel fills AND rematerializes (the fast kernel serves the
-long-pair regime it exists for); `engine="xla"` uses the checkpointed
-XLA scan.""")
+memory on the full pair.  It runs on the checkpointed XLA scan.""")
 
 code("""ba_ref = BiAligner(pa, pb, sa, sb, engine="xla", **params)
 ba_low = BiAligner(pa, pb, sa, sb, engine="xla", lowmem=True, **params)
-ba_lowp = BiAligner(pa, pb, sa, sb, engine="pallas", lowmem=True, **params)
-print("scores:", ba_ref.optimize(), ba_low.optimize(), ba_lowp.optimize())
+print("scores:", ba_ref.optimize(), ba_low.optimize())
 assert list(ba_ref.decode_trace()) == list(ba_low.decode_trace())
-assert list(ba_ref.decode_trace()) == list(ba_lowp.decode_trace())
-print("decoded alignments identical (xla + pallas checkpoint fills)")""")
+print("decoded alignments identical (full band + checkpointed fill)")""")
 
 md("""## DSSP / STRIDE input
 
@@ -121,11 +117,11 @@ for line in ba.decode_trace():
 md("""## Batched pair scoring
 
 Corpora of pairs score through `parallel.batch.score_batch`:
-length-bucketed, padded, and run on the batched kernel (sublane-packed
-Pallas on TPU — ~1,800 pairs/s at a 64-pair bucket and ~4,000/s at 512
-on one v5e for this toy — vmapped XLA scan elsewhere).  With a
-`jax.sharding.Mesh` the batch axis shards over the `data` axis; one
-long pair can instead shard its wavefront over chips
+length-bucketed, padded, and filled in one dispatch per bucket (the
+CUDA wavefront kernel, one thread block per pair, on a GPU; the vmapped
+XLA scan on a CPU).  With a `jax.sharding.Mesh` the batch axis shards
+over the `data` axis; one long pair can instead shard its wavefront
+over devices
 (`parallel.seqsplit`, `ppermute` halo exchange, full traceback
 support).""")
 
@@ -149,9 +145,8 @@ md("""## Batched ALIGNMENTS (not just scores)
 
 `parallel.batch.align_batch` runs the fill **and** the traceback batched
 on device (one fused dispatch per bucket chunk: band-emitting batched
-kernel + vmapped traceback walk), returning per-pair traces bit-exact
-with `BiAligner.traceback()` — ~740 full alignments/s on one v5e for
-this toy (BENCH_r04).  `StreamingAligner(..., alignments=True)` spools
+fill + vmapped traceback walk), returning per-pair traces bit-exact
+with `BiAligner.traceback()`.  `StreamingAligner(..., alignments=True)` spools
 the compact trace codes alongside each score.""")
 
 code("""from bialign_tpu.parallel.batch import align_batch
@@ -170,8 +165,7 @@ print("trace bit-exact vs BiAligner:",
 md("""## Steady-state serving: cached device buckets
 
 `PreparedBatch` packs and transfers a corpus once; `scores()` then runs
-only the kernels — ~14,000 pairs/s at B=512 on one v5e vs ~2,800/s when
-rebuilding buckets per call (BENCH_r04).""")
+only the fills, with no bucket rebuild and no transfer.""")
 
 code("""from bialign_tpu.parallel.batch import PreparedBatch
 
@@ -185,16 +179,12 @@ print(f"cached scoring: {len(tables)} pairs in {dt*1e3:.1f} ms "
       f"({len(tables)/dt:.0f} pairs/s on this backend)")
 print("matches one-shot path:", (s2 == scores).all())""")
 
-md("""## Serving: persistent compile cache + bucket prewarm
+md("""## Serving: persistent compile cache
 
-Kernels compile once per *length bucket* (not per exact pair), and the
-persistent JAX compilation cache keeps that across processes.  A serving
-deployment pays all compiles at startup:
-
-```python
-from bialign_tpu.utils.warmup import prewarm
-prewarm([(932, 932)], params=params, max_shift=1)
-```
+Corpus fills compile once per *length bucket* (not per exact pair), and
+the persistent JAX compilation cache keeps compiled programs across
+processes: in `JAX_COMPILATION_CACHE_DIR` when it is set, else in
+`.jax_cache/` inside the checkout.
 """)
 
 md("""## Plotting

@@ -30,7 +30,7 @@ SVG under `Notebooks/Figs/`.
 
 The reference fills the DNA-Pol-1 band in 26.2 s / 626.7 s / 2201.0 s at
 max_shift 0/1/2 (its `bialign.ipynb` cell 5); here every fill runs on the
-wavefront engine (Pallas on TPU, XLA scan elsewhere).""")
+wavefront engine (the platform's choice of CUDA kernel or XLA scan).""")
 
 code("""import os
 

@@ -1,24 +1,26 @@
-"""bialign_tpu — a TPU-native bi-alignment framework.
+"""bialign_tpu — a bi-alignment framework for accelerators (NVIDIA GPUs
+through JAX).
 
 A from-scratch rebuild of the capabilities of s-will/BiAlign (reference:
 /root/reference): optimal simultaneous sequence + structure alignment of RNA
 or protein pairs with bounded shifts, affine gap costs and shift penalties
 (Waldl et al., CIBB 2019).
 
-Architecture (TPU-first, not a port):
+Architecture (a redesign for array hardware, not a port):
 
 * the 4D banded DP (reference Cython fill loops, bialignment.pyx:443-509)
   becomes static integer case tables (:mod:`bialign_tpu.ops.cases`) driving
-  three interchangeable engines: a numpy oracle
-  (:mod:`bialign_tpu.ops.reference_dp`), an XLA anti-diagonal wavefront scan
-  (:mod:`bialign_tpu.ops.xla_dp`), and a Pallas TPU kernel
-  (:mod:`bialign_tpu.ops.pallas_dp`);
-* scoring matrices are dense int32 tables precomputed on host
-  (:mod:`bialign_tpu.scoring`), so the device DP is pure integer arithmetic
-  and bit-exact;
-* traceback walks the filled band on host in exact reference order
-  (:mod:`bialign_tpu.ops.traceback`);
-* batching / multi-chip data parallelism live in
+  interchangeable engines: a numpy oracle
+  (:mod:`bialign_tpu.ops.reference_dp`), a C++ host engine
+  (:mod:`bialign_tpu.ops.native_dp`), an XLA anti-diagonal wavefront scan
+  (:mod:`bialign_tpu.ops.xla_dp`), and a one-launch CUDA wavefront kernel
+  (:mod:`bialign_tpu.ops.cuda_dp`); :mod:`bialign_tpu.backend` picks the
+  engine per platform;
+* scoring matrices are dense int32 tables (:mod:`bialign_tpu.scoring`),
+  so the device DP is pure integer arithmetic and bit-exact;
+* traceback walks the filled band in exact reference order, on the
+  device for the JAX engines (:mod:`bialign_tpu.ops.device_traceback`);
+* batching / multi-device data parallelism live in
   :mod:`bialign_tpu.parallel`.
 
 The public API mirrors the reference package ``bialignment`` so that users

@@ -4,17 +4,22 @@ Mirrors the reference class ``bialignment.BiAligner`` (bialignment.pyx:
 155-832) in surface and observable behaviour, but the implementation is a
 different design: scoring matrices are precomputed dense int32 tables
 (:mod:`bialign_tpu.scoring.tables`), the band fill runs on one of several
-engines (numpy oracle / XLA wavefront scan / Pallas TPU kernel), and the
-traceback walks the filled band iteratively on host in exact reference
-order.
+engines (numpy oracle / C++ host engine / XLA wavefront scan / CUDA
+wavefront kernel), and the traceback walks the filled band in exact
+reference order (on the device for the JAX engines).
 
 Engine selection (``engine=`` parameter, default "auto"):
 
 * ``"numpy"``  — cell-by-cell host oracle (:mod:`bialign_tpu.ops.reference_dp`)
 * ``"native"`` — C++ host engine (:mod:`bialign_tpu.ops.native_dp`)
 * ``"xla"``    — jit-compiled anti-diagonal wavefront (:mod:`bialign_tpu.ops.xla_dp`)
-* ``"pallas"`` — Pallas TPU kernel (:mod:`bialign_tpu.ops.pallas_dp`)
-* ``"auto"``   — pallas on TPU, xla on other JAX backends, else native/numpy.
+* ``"cuda"``   — one-launch CUDA wavefront kernel (:mod:`bialign_tpu.ops.cuda_dp`),
+  max_shift <= 2, GPU only
+* ``"auto"``   — the platform's choice (:mod:`bialign_tpu.backend`); the
+  host engines only when jax cannot be imported.
+
+``lowmem`` and ``seqsplit_mesh`` run the XLA checkpoint scan under either
+JAX engine.
 
 All engines are validated bit-exact against each other (tests/), so
 `optimize()`, `traceback()` and every decode method produce reference-
@@ -66,18 +71,17 @@ PARAM_DEFAULTS = {
 }
 
 
-def _select_engine(name: str) -> str:
+ENGINE_NAMES = ("auto", "numpy", "native", "xla", "cuda")
+
+
+def _select_engine(name: str, max_shift: int) -> str:
+    if name not in ENGINE_NAMES:
+        raise ValueError(f"unknown engine {name!r}")
     if name != "auto":
         return name
-    try:
-        import jax
+    from . import backend
 
-        devs = jax.devices()
-        return "pallas" if devs and devs[0].platform == "tpu" else "xla"
-    except Exception:
-        from .ops import native_dp
-
-        return "native" if native_dp.available() else "numpy"
+    return backend.pair_engine(max_shift)
 
 
 class BiAligner:
@@ -95,7 +99,7 @@ class BiAligner:
                  **params):
         self._params = dict(PARAM_DEFAULTS)
         self._params.update(params)
-        self._engine = _select_engine(engine)
+        self._engine = _select_engine(engine, int(self._params["max_shift"]))
 
         try:
             self.molA = preprocess_molecule(seqA, strA, is_rna=self._is_rna)
@@ -143,17 +147,17 @@ class BiAligner:
         n = self.molA["len"]
         m = self.molB["len"]
         engine = self._engine
-        if self._params.get("lowmem") and engine not in ("xla", "pallas"):
+        if self._params.get("lowmem") and engine not in ("xla", "cuda"):
             import warnings
 
             warnings.warn(
                 f"lowmem=True is not supported by engine {engine!r} and is "
                 "ignored (the checkpointed band needs a JAX engine; use "
-                "engine='xla' or 'pallas')",
+                "engine='xla' or 'cuda')",
                 RuntimeWarning,
                 stacklevel=3,
             )
-        if engine in ("xla", "pallas") and not check_int32_safe(
+        if engine in ("xla", "cuda") and not check_int32_safe(
             self.mu1, self.mu2, self._params
         ):
             # int32 range cannot be certified: run the overflow-safe int64
@@ -205,7 +209,7 @@ class BiAligner:
                     self.mu1, self.mu2, self.max_shift, self.gamma,
                     self.delta,
                 )
-        elif engine in ("xla", "pallas"):
+        elif engine in ("xla", "cuda"):
             from .ops import xla_dp
 
             if self._params.get("seqsplit_mesh") is not None:
@@ -226,32 +230,14 @@ class BiAligner:
                 )
             elif self._params.get("lowmem"):
                 # O(sqrt(D))-memory mode: store only scan-carry checkpoints,
-                # rematerialize band blocks during traceback (bit-exact).
-                # engine='pallas' runs the checkpoint-emitting Pallas kernel
-                # (fill + block remat both on the fast kernel); engine='xla'
-                # the checkpointed XLA scan.  Memory savings are
-                # ~O(sqrt(D)) on the affine path, ~2x non-affine (blocked
-                # mu tables stay O(D)).
+                # rematerialize band blocks during traceback (bit-exact),
+                # on the checkpointed XLA scan for either JAX engine.
+                # Memory savings are ~O(sqrt(D)) on the affine path, ~2x
+                # non-affine (blocked mu tables stay O(D)).
                 from .ops import checkpoint_dp
 
                 block = self._params.get("checkpoint_block")
-                if engine == "pallas":
-                    if self._affine:
-                        self._H = (
-                            checkpoint_dp.fill_affine_checkpoint_pallas(
-                                self.mu1, self.mu2, self.max_shift,
-                                self.beta, self.gamma, self.delta,
-                                block=block,
-                            )
-                        )
-                    else:
-                        self._H = (
-                            checkpoint_dp.fill_nonaffine_checkpoint_pallas(
-                                self.mu1, self.mu2, self.max_shift,
-                                self.gamma, self.delta, block=block,
-                            )
-                        )
-                elif self._affine:
+                if self._affine:
                     self._H = checkpoint_dp.fill_affine_checkpoint(
                         self.mu1, self.mu2, self.max_shift, self.beta,
                         self.gamma, self.delta, block=block,
@@ -261,19 +247,17 @@ class BiAligner:
                         self.mu1, self.mu2, self.max_shift, self.gamma,
                         self.delta, block=block,
                     )
-            elif engine == "pallas":
-                from .ops import pallas_dp
+            elif engine == "cuda":
+                from .ops import cuda_dp
 
-                if self._affine:
-                    self._H = pallas_dp.fill_affine_device(
-                        self.mu1, self.mu2, self.max_shift, self.beta,
-                        self.gamma, self.delta,
-                    )
-                else:
-                    self._H = pallas_dp.fill_nonaffine_device(
-                        self.mu1, self.mu2, self.max_shift, self.gamma,
-                        self.delta,
-                    )
+                ptuple = (
+                    (self.beta, self.gamma, self.delta)
+                    if self._affine else (self.gamma, self.delta)
+                )
+                self._H = cuda_dp.fill_device(
+                    self.mu1, self.mu2, self.max_shift, ptuple,
+                    self._affine,
+                )
             elif self._affine:
                 self._H = xla_dp.fill_affine_device(
                     self.mu1, self.mu2, self.max_shift, self.beta,

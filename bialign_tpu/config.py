@@ -45,7 +45,9 @@ class AlignConfig:
             )
         if self.max_shift < 0:
             raise ValueError(f"max_shift must be >= 0, got {self.max_shift}")
-        if self.engine not in ("auto", "numpy", "native", "xla", "pallas"):
+        from .aligner import ENGINE_NAMES
+
+        if self.engine not in ENGINE_NAMES:
             raise ValueError(f"unknown engine {self.engine!r}")
 
     @property

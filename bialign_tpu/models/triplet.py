@@ -20,7 +20,7 @@ flat (non-affine) gap model of the main aligner:
     (0,0,1)  gamma + Delta
 
 Engines: a numpy oracle (correctness anchor) and an XLA anti-diagonal
-wavefront over ``d = i + j`` — the same TPU mapping as the 4D engine, with
+wavefront over ``d = i + j`` — the same mapping as the 4D engine, with
 the band offset ``sk = k - j + S`` on a small axis.
 """
 

@@ -1,8 +1,8 @@
 // Native host DP engine for bialign-tpu.
 //
-// TPU-native equivalent of the reference's single native component (the
-// Cython extension bialignment.pyx, see SURVEY.md §2.4): the TPU compute
-// path is Pallas/XLA, and this C++ core is the *host* engine — a fast,
+// Counterpart of the reference's single native component (the Cython
+// extension bialignment.pyx, see SURVEY.md §2.4): the accelerator compute
+// path is XLA/CUDA, and this C++ core is the *host* engine — a fast,
 // portable fallback used when no accelerator is available and as a second
 // independent implementation for cross-checking.  Bit-exact: it evaluates
 // the same case tables (shipped from Python, single source of truth in

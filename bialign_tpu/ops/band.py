@@ -1,14 +1,12 @@
 """Device-resident DP band handle.
 
 The wavefront engines (:mod:`bialign_tpu.ops.xla_dp`,
-:mod:`bialign_tpu.ops.pallas_dp`) fill the band in diagonal-major layout
+:mod:`bialign_tpu.ops.cuda_dp`) fill the band in diagonal-major layout
 ``ys[d, (q,) i, sk, sl]`` with ``d = i + j``.  The reference keeps its band
-in host memory and walks it with Python (bialignment.pyx:513-586); on TPU
-the band stays in HBM and the traceback runs on device
+in host memory and walks it with Python (bialignment.pyx:513-586); here
+the band stays in device memory and the traceback runs on the device
 (:mod:`bialign_tpu.ops.device_traceback`), so only the trace itself —
-O(n+m) small integers — ever crosses the host boundary.  (Transferring the
-full band off-chip is both unnecessary and, through constrained links,
-prohibitively slow.)
+O(n+m) small integers — ever crosses the host boundary.
 
 :class:`DeviceBand` wraps the device array plus its geometry and offers
 exact cell reads (vectorized gathers) for the verbose trace evaluator and
@@ -27,30 +25,22 @@ import jax
 import jax.numpy as jnp
 
 
-@functools.partial(jax.jit, static_argnums=(2, 3))
-def _gather_cells(ys, idxs, affine, p_last):
+@functools.partial(jax.jit, static_argnums=(2,))
+def _gather_cells(ys, idxs, affine):
     """Gather band cells; idxs columns are (q,) i, j, sk, sl."""
     i = idxs[:, -4]
     d = i + idxs[:, -3]
     sk = idxs[:, -2]
     sl = idxs[:, -1]
-    if affine and p_last:
-        return ys[d, idxs[:, 0], sk, sl, i]
     if affine:
         return ys[d, idxs[:, 0], i, sk, sl]
-    if p_last:
-        return ys[d, sk, sl, i]
     return ys[d, i, sk, sl]
 
 
-@functools.partial(jax.jit, static_argnums=(4, 5))
-def _final_score(ys, n, m, S, affine, p_last):
-    if affine and p_last:
-        return jnp.max(ys[n + m, :, S, S, n])
+@functools.partial(jax.jit, static_argnums=(4,))
+def _final_score(ys, n, m, S, affine):
     if affine:
         return jnp.max(ys[n + m, :, n, S, S])
-    if p_last:
-        return ys[n + m, S, S, n]
     return ys[n + m, n, S, S]
 
 
@@ -79,7 +69,6 @@ class DeviceBand:
     m: int
     max_shift: int
     affine: bool
-    p_last: bool = False  # Pallas layout: ys[d, (q,) sk, sl, i]
 
     def cells(self, idxs: np.ndarray) -> np.ndarray:
         """Exact values of a batch of cells; one vectorized device gather.
@@ -96,8 +85,7 @@ class DeviceBand:
         rel[:, -1] = idxs[:, -1] - idxs[:, -3] + S   # sl = l - j + S
         rel = _pad_pow2(rel)
         vals = jax.device_get(
-            _gather_cells(self.ys, jnp.asarray(rel), self.affine,
-                          self.p_last)
+            _gather_cells(self.ys, jnp.asarray(rel), self.affine)
         )
         return vals[:N]
 
@@ -108,16 +96,12 @@ class DeviceBand:
         """Optimal score read from the final cell (one tiny transfer)."""
         return int(jax.device_get(_final_score(
             self.ys, self.n, self.m, self.max_shift, self.affine,
-            self.p_last,
         )))
 
     def to_numpy(self) -> np.ndarray:
         """Full band in oracle layout H[(q,) i, j, sk, sl] (tests only —
         transfers the entire band to host)."""
         ys = np.asarray(self.ys)
-        if self.p_last:
-            # [D, (Q,) W, W, P] -> [D, (Q,) P, W, W]
-            ys = np.moveaxis(ys, -1, -3)[..., : self.n + 1, :, :]
         n, m = self.n, self.m
         W = 2 * self.max_shift + 1
         if self.affine:

@@ -49,10 +49,6 @@ _KEY_SCALE = 256  # > any |net B shift| during a walk (bounded by S+1)
 
 N_AFFINE_CASES = 15
 
-# Lane width of the folded batched-band layout (pallas_dp.LANES; kept a
-# local constant so this module stays importable without Pallas).
-_LANES = 128
-
 
 @functools.lru_cache(maxsize=None)
 def _affine_static_tables():
@@ -81,8 +77,8 @@ def _encode_col(col):
     return col[..., 0] * 8 + col[..., 1] * 4 + col[..., 2] * 2 + col[..., 3]
 
 
-@functools.partial(jax.jit, static_argnums=(4, 5))
-def _affine_walk(ys, mu1, mu2, case_const, max_shift, p_last, n, m):
+@functools.partial(jax.jit, static_argnums=(4,))
+def _affine_walk(ys, mu1, mu2, case_const, max_shift, n, m):
     """Device walk; returns (trace_codes[Lmax], n_steps, done_code, score).
 
     The start state (best final score, ties by minimal intrinsic shift,
@@ -97,7 +93,6 @@ def _affine_walk(ys, mu1, mu2, case_const, max_shift, p_last, n, m):
     2 = stuck (the reference's incomplete-traceback warning case).
     """
     S = max_shift
-    W = 2 * S + 1
     Lmax = 2 * (mu1.shape[0] - 1 + mu1.shape[1] - 1) + 1
 
     src_t, col_t, mults_t = _affine_static_tables()
@@ -113,23 +108,7 @@ def _affine_walk(ys, mu1, mu2, case_const, max_shift, p_last, n, m):
     )
     CODES = jnp.asarray(_encode_col(col_t))      # [9,15]
 
-    # p_last == "folded": the batched band's HBM-friendly layout
-    # ys[d, ((q*W + sk)*W + sl)*SUB + i//LANES, i%LANES] (see
-    # pallas_dp._affine_batched_kernel)
-    folded = p_last == "folded"
-    if folded:
-        # the folded index formulas below hard-code the kernel lane
-        # width; a divergence must fail loudly, not decode garbage
-        assert ys.shape[-1] == _LANES, (ys.shape, _LANES)
-    SUBw = ys.shape[1] // (N_STATES * W * W) if folded else 0
-
     def cell(q, i, j, k, l):
-        if folded:
-            f = ((q * W + (k - i + S)) * W + (l - j + S)) * SUBw \
-                + i // _LANES
-            return ys[i + j, f, i % _LANES]
-        if p_last:
-            return ys[i + j, q, k - i + S, l - j + S, i]
         return ys[i + j, q, i, k - i + S, l - j + S]
 
     def cond(st):
@@ -158,14 +137,7 @@ def _affine_walk(ys, mu1, mu2, case_const, max_shift, p_last, n, m):
         cd_ = jnp.clip(pi + pj, 0, n + m)
         csk = jnp.clip(pk - pi + S, 0, 2 * S)
         csl = jnp.clip(pl - pj + S, 0, 2 * S)
-        if folded:
-            f = ((SRC[q] * W + csk) * W + csl) * SUBw + ci_ // _LANES
-            pred_cells = ys[cd_, f, ci_ % _LANES]
-        else:
-            pred_cells = (
-                ys[cd_, SRC[q], csk, csl, ci_] if p_last
-                else ys[cd_, SRC[q], ci_, csk, csl]
-            )
+        pred_cells = ys[cd_, SRC[q], ci_, csk, csl]
         vals = (
             pred_cells
             + case_const[q]
@@ -202,12 +174,7 @@ def _affine_walk(ys, mu1, mu2, case_const, max_shift, p_last, n, m):
         }
 
     # start-state selection (pyx:573-582), on device
-    if folded:
-        qv = jnp.arange(N_STATES)
-        fq = ((qv * W + S) * W + S) * SUBw + n // _LANES
-        final = ys[n + m, fq, n % _LANES]
-    else:
-        final = ys[n + m, :, S, S, n] if p_last else ys[n + m, :, n, S, S]
+    final = ys[n + m, :, n, S, S]
     score = jnp.max(final)
     intrinsic = jnp.asarray(
         [abs(s[0] - s[2]) + abs(s[1] - s[3]) for s in STATES],
@@ -249,8 +216,7 @@ def affine_traceback(band: DeviceBand, beta: int, gamma: int, delta: int,
     const = jnp.asarray(_affine_const(beta, gamma, delta))
     codes, steps, done, _score = jax.device_get(_affine_walk(
         band.ys, jnp.asarray(_pad_mu(mu1)), jnp.asarray(_pad_mu(mu2)),
-        const, band.max_shift, band.p_last, jnp.int32(band.n),
-        jnp.int32(band.m),
+        const, band.max_shift, jnp.int32(band.n), jnp.int32(band.m),
     ))
     codes = codes[:int(steps)]
     trace = [
@@ -260,12 +226,11 @@ def affine_traceback(band: DeviceBand, beta: int, gamma: int, delta: int,
     return trace, int(done) == 1
 
 
-@functools.partial(jax.jit, static_argnums=(4, 5))
-def _affine_walk_batch(ys, mu1, mu2, case_const, max_shift, p_last, ns,
-                       ms):
+@functools.partial(jax.jit, static_argnums=(4,))
+def _affine_walk_batch(ys, mu1, mu2, case_const, max_shift, ns, ms):
     """vmap of :func:`_affine_walk` over a same-bucket batch.
 
-    ys: [B, D, Q, W, W, P] (p_last) or [B, D, Q, P, W, W]; mu1/mu2:
+    ys: [B, D, Q, P, W, W]; mu1/mu2:
     [B, Np, Mp] dense int32; ns/ms: [B].  The batched while_loop runs
     until every pair's walk halts (inactive pairs idle, trace capacity
     is the bucket's Lmax).  Returns (codes [B, Lmax], steps [B],
@@ -273,8 +238,7 @@ def _affine_walk_batch(ys, mu1, mu2, case_const, max_shift, p_last, ns,
     """
 
     def one(y, m1, m2, n, m):
-        return _affine_walk(y, m1, m2, case_const, max_shift, p_last,
-                            n, m)
+        return _affine_walk(y, m1, m2, case_const, max_shift, n, m)
 
     return jax.vmap(one)(ys, mu1, mu2, ns, ms)
 
@@ -287,23 +251,20 @@ def decode_walk_codes(codes_row, steps: int):
     ]
 
 
-@functools.partial(jax.jit, static_argnums=(4, 5))
-def _nonaffine_walk_batch(ys, mu1, mu2, case_const, max_shift, p_last,
-                          ns, ms):
+@functools.partial(jax.jit, static_argnums=(4,))
+def _nonaffine_walk_batch(ys, mu1, mu2, case_const, max_shift, ns, ms):
     """Non-affine twin of :func:`_affine_walk_batch`; returns
     (codes [B, Lmax], steps [B])."""
 
     def one(y, m1, m2, n, m):
-        return _nonaffine_walk(y, m1, m2, case_const, max_shift, p_last,
-                               n, m)
+        return _nonaffine_walk(y, m1, m2, case_const, max_shift, n, m)
 
     return jax.vmap(one)(ys, mu1, mu2, ns, ms)
 
 
-@functools.partial(jax.jit, static_argnums=(4, 5))
-def _nonaffine_walk(ys, mu1, mu2, case_const, max_shift, p_last, n, m):
+@functools.partial(jax.jit, static_argnums=(4,))
+def _nonaffine_walk(ys, mu1, mu2, case_const, max_shift, n, m):
     S = max_shift
-    W = 2 * S + 1
     # n/m are runtime scalars; trace capacity from the padded mu shapes
     Lmax = 2 * (mu1.shape[0] - 1 + mu1.shape[1] - 1) + 1
 
@@ -313,21 +274,10 @@ def _nonaffine_walk(ys, mu1, mu2, case_const, max_shift, p_last, n, m):
     MU2C = jnp.asarray(tabs.mu2_coef)
     CODES = jnp.asarray(_encode_col(np.asarray(NONAFFINE_COLS)))
 
-    folded = p_last == "folded"
-    if folded:
-        # lane width must match the kernel's (see _affine_walk)
-        assert ys.shape[-1] == _LANES, (ys.shape, _LANES)
-    SUBw = ys.shape[1] // (W * W) if folded else 0
-
     def cond(st):
         return (st["done"] == 0) & (st["step"] < Lmax)
 
     def cell(i_, j_, sk_, sl_):
-        if folded:
-            f = (sk_ * W + sl_) * SUBw + i_ // _LANES
-            return ys[i_ + j_, f, i_ % _LANES]
-        if p_last:
-            return ys[i_ + j_, sk_, sl_, i_]
         return ys[i_ + j_, i_, sk_, sl_]
 
     def body(st):
@@ -382,7 +332,7 @@ def nonaffine_traceback(band: DeviceBand, gamma: int, delta: int, mu1, mu2):
     tabs = NonAffineTables(gamma, delta)
     codes, steps = jax.device_get(_nonaffine_walk(
         band.ys, jnp.asarray(_pad_mu(mu1)), jnp.asarray(_pad_mu(mu2)),
-        jnp.asarray(tabs.const), band.max_shift, band.p_last,
+        jnp.asarray(tabs.const), band.max_shift,
         jnp.int32(band.n), jnp.int32(band.m),
     ))
     codes = codes[:int(steps)]

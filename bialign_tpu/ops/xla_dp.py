@@ -1,7 +1,7 @@
 """XLA anti-diagonal wavefront engine for the banded 4D bi-alignment DP.
 
-TPU-first re-design of the reference fill loops (bialignment.pyx:443-509):
-instead of per-cell Python generators, the recurrence runs as a
+A re-design of the reference fill loops (bialignment.pyx:443-509) as
+array code for an accelerator: instead of per-cell Python generators, the recurrence runs as a
 ``lax.scan`` over anti-diagonals ``d = i + j``.  Per diagonal the engine
 holds a slab ``V[(Q,) P, W, W]`` (P = n+1 lattice rows indexed by i,
 W = 2*max_shift+1 shift offsets, Q = 9 affine states), computes every
@@ -41,6 +41,7 @@ from ..utils.jaxconfig import ensure_compile_cache
 
 ensure_compile_cache()
 
+from .device_tables import diag_tables
 from .cases import (
     NEG_INF,
     N_STATES,
@@ -295,7 +296,7 @@ def affine_score_traced(mu1d, mu2d, n, m, max_shift, params):
 _affine_scan = jax.jit(affine_scan, static_argnums=(2, 3, 4, 5, 6, 7))
 
 
-def fill_affine(mu1, mu2, max_shift, beta, gamma, delta, *, pallas=False,
+def fill_affine(mu1, mu2, max_shift, beta, gamma, delta, *,
                 score_only=False, int64=False):
     """Affine band fill; returns H[q,i,j,sk,sl] (int64 numpy, oracle layout)
     or, with score_only, the optimal score.
@@ -308,32 +309,17 @@ def fill_affine(mu1, mu2, max_shift, beta, gamma, delta, *, pallas=False,
     n = mu1.shape[0] - 1
     m = mu1.shape[1] - 1
     S = max_shift
-    if int64:
-        with jax.enable_x64():
-            mu1d, mu2d = _diag_mu_tables(
-                np.asarray(mu1), np.asarray(mu2), S, dtype=np.int64
-            )
-            last, ys = _affine_scan(
-                mu1d, mu2d, n, m, S, (beta, gamma, delta), score_only,
-                np.int64,
-            )
-            if score_only:
-                return int(np.max(np.asarray(last[:, n, S, S])))
-            return _diag_to_band(np.asarray(ys), n, m, S, affine=True)
-    mu1d, mu2d = _diag_mu_tables(np.asarray(mu1), np.asarray(mu2), S)
-    if pallas:
-        from . import pallas_dp
-
-        last, ys = pallas_dp.affine_scan(
-            mu1d, mu2d, n, m, S, (beta, gamma, delta), score_only
+    dtype = np.int64 if int64 else np.int32
+    with jax.enable_x64(int64):
+        mu1d, mu2d = _diag_mu_tables(
+            np.asarray(mu1), np.asarray(mu2), S, dtype=dtype
         )
-    else:
         last, ys = _affine_scan(
-            mu1d, mu2d, n, m, S, (beta, gamma, delta), score_only
+            mu1d, mu2d, n, m, S, (beta, gamma, delta), score_only, dtype,
         )
-    if score_only:
-        return int(np.max(np.asarray(last[:, n, S, S])))
-    return _diag_to_band(np.asarray(ys), n, m, S, affine=True)
+        if score_only:
+            return int(np.max(np.asarray(last[:, n, S, S])))
+        return _diag_to_band(np.asarray(ys), n, m, S, affine=True)
 
 
 def _build_nonaffine_step(P, max_shift, params, score_only, i_base=0,
@@ -453,7 +439,7 @@ def nonaffine_score_traced(mu1d, mu2d, n, m, max_shift, params):
 _nonaffine_scan = jax.jit(nonaffine_scan, static_argnums=(2, 3, 4, 5, 6, 7))
 
 
-def fill_nonaffine(mu1, mu2, max_shift, gamma, delta, *, pallas=False,
+def fill_nonaffine(mu1, mu2, max_shift, gamma, delta, *,
                    score_only=False, int64=False):
     """Non-affine band fill; H[i,j,sk,sl] int64 numpy, or the score.
 
@@ -462,63 +448,55 @@ def fill_nonaffine(mu1, mu2, max_shift, gamma, delta, *, pallas=False,
     n = mu1.shape[0] - 1
     m = mu1.shape[1] - 1
     S = max_shift
-    if int64:
-        with jax.enable_x64():
-            mu1d, mu2d = _diag_mu_tables(
-                np.asarray(mu1), np.asarray(mu2), S, dtype=np.int64
-            )
-            last, ys = _nonaffine_scan(
-                mu1d, mu2d, n, m, S, (gamma, delta), score_only, np.int64
-            )
-            if score_only:
-                return int(np.asarray(last[n, S, S]))
-            return _diag_to_band(np.asarray(ys), n, m, S, affine=False)
-    mu1d, mu2d = _diag_mu_tables(np.asarray(mu1), np.asarray(mu2), S)
-    last, ys = _nonaffine_scan(
-        mu1d, mu2d, n, m, S, (gamma, delta), score_only
-    )
-    if score_only:
-        return int(np.asarray(last[n, S, S]))
-    return _diag_to_band(np.asarray(ys), n, m, S, affine=False)
+    dtype = np.int64 if int64 else np.int32
+    with jax.enable_x64(int64):
+        mu1d, mu2d = _diag_mu_tables(
+            np.asarray(mu1), np.asarray(mu2), S, dtype=dtype
+        )
+        last, ys = _nonaffine_scan(
+            mu1d, mu2d, n, m, S, (gamma, delta), score_only, dtype
+        )
+        if score_only:
+            return int(np.asarray(last[n, S, S]))
+        return _diag_to_band(np.asarray(ys), n, m, S, affine=False)
 
 
-def fill_affine_device(mu1, mu2, max_shift, beta, gamma, delta, *,
-                       pallas=False):
+@functools.partial(jax.jit, static_argnums=(2, 3, 4))
+def _band_device(mu1, mu2, max_shift, params, affine):
+    """Diagonal tables built on the device, then the band-emitting scan;
+    ys[D, (Q,) P, W, W] for the dense (n+1, m+1) tables."""
+    n = mu1.shape[0] - 1
+    m = mu1.shape[1] - 1
+    mu1d, mu2d = diag_tables(mu1, mu2, max_shift, n + m + 1)
+    scan = affine_scan if affine else nonaffine_scan
+    return scan(mu1d, mu2d, n, m, max_shift, params)[1]
+
+
+def fill_affine_device(mu1, mu2, max_shift, beta, gamma, delta):
     """Affine band fill kept on device; returns a DeviceBand.
 
-    The TPU-native serving path: the band stays in HBM for the on-device
-    traceback (:mod:`bialign_tpu.ops.device_traceback`); nothing large is
-    ever transferred to host.
+    The band stays in device memory for the on-device traceback
+    (:mod:`bialign_tpu.ops.device_traceback`); nothing large is ever
+    transferred to the host.
     """
-    from .band import DeviceBand
-
-    n = mu1.shape[0] - 1
-    m = mu1.shape[1] - 1
-    S = max_shift
-    mu1d, mu2d = _diag_mu_tables(np.asarray(mu1), np.asarray(mu2), S)
-    if pallas:
-        from . import pallas_dp
-
-        _, ys = pallas_dp.affine_scan(
-            mu1d, mu2d, n, m, S, (beta, gamma, delta), False
-        )
-    else:
-        _, ys = _affine_scan(mu1d, mu2d, n, m, S, (beta, gamma, delta),
-                             False)
-    return DeviceBand(ys=ys, n=n, m=m, max_shift=S, affine=True)
+    return _fill_device(mu1, mu2, max_shift, (beta, gamma, delta), True)
 
 
-def fill_nonaffine_device(mu1, mu2, max_shift, gamma, delta, *,
-                          pallas=False):
+def fill_nonaffine_device(mu1, mu2, max_shift, gamma, delta):
     """Non-affine band fill kept on device; returns a DeviceBand."""
+    return _fill_device(mu1, mu2, max_shift, (gamma, delta), False)
+
+
+def _fill_device(mu1, mu2, max_shift, params, affine):
     from .band import DeviceBand
 
     n = mu1.shape[0] - 1
     m = mu1.shape[1] - 1
-    S = max_shift
-    mu1d, mu2d = _diag_mu_tables(np.asarray(mu1), np.asarray(mu2), S)
-    _, ys = _nonaffine_scan(mu1d, mu2d, n, m, S, (gamma, delta), False)
-    return DeviceBand(ys=ys, n=n, m=m, max_shift=S, affine=False)
+    ys = _band_device(
+        jnp.asarray(mu1, dtype=jnp.int32), jnp.asarray(mu2, dtype=jnp.int32),
+        int(max_shift), tuple(int(p) for p in params), affine,
+    )
+    return DeviceBand(ys=ys, n=n, m=m, max_shift=max_shift, affine=affine)
 
 
 def _diag_to_band(ys: np.ndarray, n: int, m: int, max_shift: int, *,

@@ -2,7 +2,7 @@
 and sequence-split (context-parallel) single-pair sharding.
 
 The reference is single-process, single-threaded (SURVEY.md §2.4); this
-package is the TPU-native scale-out layer.
+package is the scale-out layer.
 """
 
 from .batch import (
@@ -16,7 +16,6 @@ from .batch import (
     dispatch_score_batch_codes,
     encode_pair,
     make_buckets,
-    make_buckets_dense,
     match_mismatch_lut,
     score_batch,
 )
@@ -47,7 +46,6 @@ __all__ = [
     "fill_seqsplit",
     "init_distributed",
     "make_buckets",
-    "make_buckets_dense",
     "match_mismatch_lut",
     "merge_spools",
     "score_batch",

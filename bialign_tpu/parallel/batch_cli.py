@@ -71,6 +71,15 @@ def add_batch_parameters(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("--distributed", action="store_true",
                         help="initialize jax.distributed and shard the "
                         "stream across processes")
+    parser.add_argument("--coordinator", default=None,
+                        help="with --distributed: coordinator address "
+                        "host:port (default: cluster auto-detection)")
+    parser.add_argument("--num_processes", type=int, default=None)
+    parser.add_argument("--process_id", type=int, default=None)
+    parser.add_argument("--local_device", type=int, default=None,
+                        help="with --distributed: the one card of this "
+                        "host this process drives; give each process of "
+                        "a shared host its own")
     # scoring parameters (reference names, bialign.py:25-96)
     parser.add_argument("--type", default="RNA")
     parser.add_argument("--sequence_match_similarity", type=int,
@@ -115,7 +124,10 @@ def main(argv=None) -> int:
 
     pidx, pcount = (0, 1)
     if ns.distributed:
-        pidx, pcount = init_distributed()
+        pidx, pcount = init_distributed(
+            ns.coordinator, ns.num_processes, ns.process_id,
+            None if ns.local_device is None else [ns.local_device],
+        )
 
     params = {
         k: getattr(ns, k)

@@ -1,13 +1,14 @@
-"""Sequence-split (context-parallel) scoring of ONE pair across chips.
+"""Sequence-split (context-parallel) scoring of ONE pair across devices.
 
 The reference is single-threaded (SURVEY.md §2.4); batch data parallelism
 (:mod:`bialign_tpu.parallel.batch`) covers corpora of pairs.  This module
 covers the orthogonal axis: when a *single* pair is so long that one
-chip's fill is the bottleneck (or its carry slabs outgrow VMEM/HBM), the
-anti-diagonal wavefront itself is sharded over the mesh — the TPU analog
+device's fill is the bottleneck (or its band outgrows device memory), the
+anti-diagonal wavefront itself is sharded over the mesh — the DP's analog
 of context/sequence parallelism.
 
-Design (scaling-book recipe — mesh, shardings, XLA collectives over ICI):
+Design (mesh, shardings, XLA collectives between devices — NVLink on a
+multi-GPU host):
 
 * the per-diagonal slab ``V[(Q,) P, W, W]`` is split along the lattice-row
   axis ``P = n+1`` into contiguous chunks, one per device of the ``sp``
@@ -15,16 +16,16 @@ Design (scaling-book recipe — mesh, shardings, XLA collectives over ICI):
 * the recurrence's only cross-row dependency is row ``i-1`` (columns with
   a seqA advance, cases pyx:255-296), so each scan step exchanges a ONE-ROW
   halo ``[Q, 1, W, W]`` with the right neighbor via ``lax.ppermute`` —
-  a nearest-neighbor ICI transfer of ~Q*W*W ints (~324 B at max_shift 1)
+  a nearest-neighbor transfer of ~Q*W*W ints (~324 B at max_shift 1)
   per carried slab per diagonal.  The step is structured so the transfer
   can genuinely overlap the math (:func:`_make_shard_step`): the halo is
   consumed ONLY by a tiny 2-row boundary fixup, while the interior slab
   update never depends on it — so in the compiled dependency graph the
   async collective-permute runs in parallel with the O(Pk*W^2*Q*cases)
   interior work, and the serial per-diagonal critical path is
-  ~max(interior math, halo latency) + fixup.  (This container exposes
-  one chip, so actual ICI timings remain unprofiled; the 8-device CPU
-  mesh tests validate bit-exactness of the overlapped formulation.);
+  ~max(interior math, halo latency) + fixup.  (Collective time per
+  step is not measured yet; the 8-device CPU mesh tests validate
+  bit-exactness of the overlapped formulation.);
 * each shard evaluates the shared step function
   (:func:`bialign_tpu.ops.xla_dp._build_affine_step`) on its halo-extended
   chunk with the correct *global* row offsets (``i_base``), so every cell
@@ -32,7 +33,7 @@ Design (scaling-book recipe — mesh, shardings, XLA collectives over ICI):
 * the final score lives on the shard owning global row ``n``; a
   ``lax.pmax`` broadcasts it (replicated output).
 
-Weak-scaling: per-diagonal work per chip drops from O(n * W^2 * Q * cases)
+Weak-scaling: per-diagonal work per device drops from O(n * W^2 * Q * cases)
 to O(n/K ...); the halo is O(1).  The scan remains serial over the n+m+1
 diagonals — inherent to the DP's data dependence.
 """
@@ -81,7 +82,7 @@ def _make_shard_step(axis: str, K: int, S: int, params, affine: bool,
     * a 2-row boundary fixup (halo row + local row 0) that is the ONLY
       consumer of the transferred halos,
 
-    puts the ICI transfer latency in parallel with the interior slab math
+    puts the halo transfer latency in parallel with the interior slab math
     in the dependency graph — XLA's scheduler can overlap the async
     collective-permute with the O(Pk * W^2 * Q * cases) interior work,
     instead of serializing transfer -> whole-slab step as a halo-

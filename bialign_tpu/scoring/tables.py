@@ -2,7 +2,7 @@
 
 The reference evaluates mu1 (sequence similarity, bialignment.pyx:404-412,
 435-436) and mu2 (structure similarity, pyx:414-429, 439-440) per DP cell
-through Python calls.  TPU-first design instead precomputes dense int32
+through Python calls.  This design instead precomputes dense int32
 tables once on the host:
 
     mu1[i, j]  for i in 0..n, j in 0..m   (1-based residue indices)

@@ -4,7 +4,7 @@ mesh when more than one device is visible.
 
 Run: python examples/batch_streaming.py [n_pairs]
 (Use XLA_FLAGS=--xla_force_host_platform_device_count=8 JAX_PLATFORMS=cpu
-to demo mesh sharding without a TPU slice.)
+to demo mesh sharding without several GPUs.)
 """
 
 import random

@@ -71,20 +71,20 @@ def test_sharded_affine_matches_oracle(pairs):
     assert (got == want).all()
 
 
-def test_batched_pallas_engine_matches_oracle(pairs):
-    """Batched Pallas kernel (interpret mode on CPU) vs per-pair oracle."""
+def test_batched_xla_engine_matches_oracle(pairs):
+    """Explicit engine="xla": vmapped scan with device-built tables."""
     S, beta, gamma, delta = 1, -150, -50, -150
     want = _oracle_scores(pairs, S, beta, gamma, delta, True)
     got = pbatch.score_batch(
         pairs, S, (beta, gamma, delta), affine=True, bucket_quantum=8,
-        engine="pallas",
+        engine="xla",
     )
     assert (got == want).all()
 
 
-def test_sharded_pallas_engine_matches_oracle(pairs):
-    """shard_map of the batched Pallas kernel over an 8-device data mesh
-    (interpret mode on CPU) vs per-pair oracle — VERDICT r2 item 2."""
+def test_sharded_xla_engine_matches_oracle(pairs):
+    """shard_map of the batched scorer over an 8-device data mesh with
+    an explicit engine vs per-pair oracle."""
     S, beta, gamma, delta = 1, -150, -50, -150
     devices = np.array(jax.devices())
     assert len(devices) == 8, "conftest should provide 8 virtual devices"
@@ -92,57 +92,50 @@ def test_sharded_pallas_engine_matches_oracle(pairs):
     want = _oracle_scores(pairs, S, beta, gamma, delta, True)
     got = pbatch.score_batch(
         pairs, S, (beta, gamma, delta), affine=True, mesh=mesh,
-        bucket_quantum=16, engine="pallas",
+        bucket_quantum=16, engine="xla",
     )
     assert (got == want).all()
 
 
-def test_batched_pallas_nonaffine_matches_oracle(pairs):
-    """Non-affine batched Pallas kernel (interpret mode on CPU)."""
+def test_batched_xla_nonaffine_matches_oracle(pairs):
     S, gamma, delta = 1, -200, -250
     want = _oracle_scores(pairs, S, 0, gamma, delta, False)
     got = pbatch.score_batch(
         pairs, S, (gamma, delta), affine=False, bucket_quantum=8,
-        engine="pallas",
+        engine="xla",
     )
     assert (got == want).all()
 
 
-def test_sharded_pallas_nonaffine_matches_oracle(pairs):
+def test_sharded_xla_nonaffine_matches_oracle(pairs):
     S, gamma, delta = 2, -200, -250
     devices = np.array(jax.devices())
     mesh = Mesh(devices, ("data",))
     want = _oracle_scores(pairs, S, 0, gamma, delta, False)
     got = pbatch.score_batch(
         pairs, S, (gamma, delta), affine=False, mesh=mesh,
-        bucket_quantum=16, engine="pallas",
+        bucket_quantum=16, engine="xla",
     )
     assert (got == want).all()
 
 
-def test_packed_batched_kernel_matches_oracle():
-    """Sublane-packed batched kernel (8 pairs per vreg): one bucket,
-    PACK-multiple batch, mixed true lengths, both recurrences."""
+def test_mixed_length_bucket_matches_oracle():
+    """One bucket of 16 pairs with mixed true lengths, both
+    recurrences: padding must never change a score."""
     rng = np.random.default_rng(11)
     pairs = [
         _rand_pair(rng, 5 + (i % 4), 6 + (i % 3)) for i in range(16)
     ]
-    from bialign_tpu.ops import pallas_dp
-
-    # bucket (8, 8) -> Ppad == LANES and B == 16 is a PACK multiple:
-    # score_batch must route through _pallas_batched_packed
     S, beta, gamma, delta = 1, -150, -50, -150
     want = _oracle_scores(pairs, S, beta, gamma, delta, True)
     got = pbatch.score_batch(
         pairs, S, (beta, gamma, delta), affine=True, bucket_quantum=8,
-        engine="pallas",
     )
     assert (got == want).all(), (got, want)
 
     want_na = _oracle_scores(pairs, S, 0, -200, -250, False)
     got_na = pbatch.score_batch(
         pairs, S, (-200, -250), affine=False, bucket_quantum=8,
-        engine="pallas",
     )
     assert (got_na == want_na).all(), (got_na, want_na)
 
@@ -217,7 +210,6 @@ def test_prepared_batch_matches_score_batch(pairs):
     S, beta, gamma, delta = 1, -150, -50, -150
     want = pbatch.score_batch(
         pairs, S, (beta, gamma, delta), affine=True, bucket_quantum=8,
-        engine="pallas",
     )
     prep = pbatch.PreparedBatch(pairs, S, (beta, gamma, delta),
                                 affine=True, bucket_quantum=8)
@@ -229,17 +221,18 @@ def test_prepared_batch_matches_score_batch(pairs):
     assert (pbatch.score_batch(prep, S, (beta, gamma, delta),
                                affine=True) == want).all()
     # conflicting engine / bucket_quantum must fail loudly, like the
-    # stale-parameter policy (a PreparedBatch always runs Pallas and
-    # bakes in its bucketing)
+    # stale-parameter policy (a PreparedBatch bakes in its engine and
+    # its bucketing)
+    assert prep.engine == "xla"          # the CPU's choice
     with pytest.raises(ValueError, match="engine"):
         pbatch.score_batch(prep, S, (beta, gamma, delta), affine=True,
-                           engine="xla")
+                           engine="cuda")
     with pytest.raises(ValueError, match="bucket_quantum"):
         pbatch.score_batch(prep, S, (beta, gamma, delta), affine=True,
                            bucket_quantum=16)
     # matching explicit values are a cache hit, not a conflict
     assert (pbatch.score_batch(prep, S, (beta, gamma, delta),
-                               affine=True, engine="pallas",
+                               affine=True, engine="xla",
                                bucket_quantum=8) == want).all()
 
 
@@ -305,20 +298,21 @@ def test_batch_int32_overflow_guard():
     mu1 = np.full((n + 1, m + 1), 2_000_000, dtype=np.int32)
     mu2 = np.full((n + 1, m + 1), 2_000_000, dtype=np.int32)
     big = (-20_000_000, -2_000_000, -2_000_000)
+    for engine in ("auto", "xla", "cuda"):
+        with pytest.raises(ValueError, match="int32"):
+            pbatch.score_batch([(mu1, mu2)], 1, big, affine=True,
+                               bucket_quantum=8, engine=engine)
     with pytest.raises(ValueError, match="int32"):
-        pbatch.score_batch([(mu1, mu2)], 1, big, affine=True,
-                           bucket_quantum=8, engine="pallas")
-    with pytest.raises(ValueError, match="int32"):
-        pbatch.score_batch([(mu1, mu2)], 1, big, affine=True,
-                           bucket_quantum=8, engine="xla")
+        pbatch.PreparedBatch([(mu1, mu2)], 1, big, affine=True,
+                             bucket_quantum=8)
     with pytest.raises(ValueError, match="int32"):
         pbatch.align_batch([(mu1, mu2)], 1, big, affine=True,
                            bucket_quantum=8)
 
 
 def test_align_batch_multi_sublane_bucket():
-    """Pairs longer than one lane row (n > 127) exercise the folded
-    layout's SUB > 1 indexing (i -> (i // 128, i % 128))."""
+    """Pairs longer than 128 rows in one 192-row bucket: the batched
+    band and walk vs the lone-pair device band and walk."""
     rng = np.random.default_rng(17)
     pairs = [_rand_pair(rng, 130 + i, 131 - i) for i in range(2)]
     S, beta, gamma, delta = 1, -150, -50, -150
@@ -348,15 +342,18 @@ def test_prepared_batch_arg_mismatch_raises(pairs):
         pbatch.score_batch(prep, 1, (-200, -80, -200), affine=True)
 
 
-def test_packed_ms0_specialized_matches_oracle():
-    """max_shift 0 batched scoring routes through the packed 3-state
-    kernel; must equal the per-pair oracle."""
+def test_ms0_batched_matches_oracle():
+    """max_shift 0 batched scoring and alignments vs the per-pair
+    oracle."""
     rng = np.random.default_rng(23)
     pairs = [_rand_pair(rng, 5 + (i % 4), 6 + (i % 3)) for i in range(16)]
     beta, gamma, delta = -150, -50, -150
     want = _oracle_scores(pairs, 0, beta, gamma, delta, True)
     got = pbatch.score_batch(
         pairs, 0, (beta, gamma, delta), affine=True, bucket_quantum=8,
-        engine="pallas",
     )
     assert (got == want).all(), (got, want)
+    scores, _, _ = pbatch.align_batch(
+        pairs, 0, (beta, gamma, delta), affine=True, bucket_quantum=8,
+    )
+    assert (scores == want).all()

@@ -105,46 +105,46 @@ def test_lowmem_unsupported_engine_warns():
     assert score == TOY_RNA_AFFINE_SCORE
 
 
-# -- Pallas checkpointed fill (VERDICT r3 item 5) -----------------------------
+# -- lowmem under the CUDA engine ---------------------------------------------
+#
+# The kernel has no checkpoint mode: lowmem with engine="cuda" runs the
+# XLA checkpoint scan, so these run on any backend.
 
 @pytest.mark.parametrize("block", [None, 40])
-def test_affine_rna_pallas_checkpoint_parity(block):
-    """lowmem + engine='pallas' runs the checkpoint-emitting Pallas fill
-    (interpret mode on CPU) and must match the oracle end-to-end."""
+def test_affine_rna_cuda_engine_lowmem_parity(block):
     ref = _aligner(TOY_RNA, TOY_RNA_AFFINE_PARAMS, engine="numpy")
-    ck = _aligner(TOY_RNA, TOY_RNA_AFFINE_PARAMS, engine="pallas",
+    ck = _aligner(TOY_RNA, TOY_RNA_AFFINE_PARAMS, engine="cuda",
                   lowmem=True, checkpoint_block=block)
     assert ref.optimize() == TOY_RNA_AFFINE_SCORE
     assert ck.optimize() == TOY_RNA_AFFINE_SCORE
     assert isinstance(ck._H, checkpoint_dp.CheckpointBand)
-    assert ck._H.p_last
     assert ck.traceback() == ref.traceback()
     assert _lines(ck) == _lines(ref)
 
 
-def test_nonaffine_rna_pallas_checkpoint_parity():
+def test_nonaffine_rna_cuda_engine_lowmem_parity():
     ref = _aligner(TOY_RNA, TOY_RNA_NONAFFINE_PARAMS, engine="numpy")
-    ck = _aligner(TOY_RNA, TOY_RNA_NONAFFINE_PARAMS, engine="pallas",
+    ck = _aligner(TOY_RNA, TOY_RNA_NONAFFINE_PARAMS, engine="cuda",
                   lowmem=True)
     assert ck.optimize() == TOY_RNA_NONAFFINE_SCORE
-    assert ck._H.p_last
+    assert isinstance(ck._H, checkpoint_dp.CheckpointBand)
     assert ck.traceback() == ref.traceback()
     assert _lines(ck) == _lines(ref)
 
 
-def test_affine_protein_pallas_checkpoint_parity():
+def test_affine_protein_cuda_engine_lowmem_parity():
     ref = _aligner(TOY_PROTEIN, TOY_PROTEIN_PARAMS, engine="numpy")
-    ck = _aligner(TOY_PROTEIN, TOY_PROTEIN_PARAMS, engine="pallas",
+    ck = _aligner(TOY_PROTEIN, TOY_PROTEIN_PARAMS, engine="cuda",
                   lowmem=True)
     assert ck.optimize() == TOY_PROTEIN_SCORE
     assert ck.traceback() == ref.traceback()
     assert _lines(ck) == _lines(ref)
 
 
-def test_nonaffine_eval_trace_via_pallas_checkpoint_cells():
-    """Verbose evaluator reads cells through the Pallas block remat."""
+def test_nonaffine_eval_trace_via_cuda_engine_lowmem_cells():
+    """Verbose evaluator reads cells through the XLA block remat."""
     ref = _aligner(TOY_RNA, TOY_RNA_NONAFFINE_PARAMS, engine="numpy")
-    ck = _aligner(TOY_RNA, TOY_RNA_NONAFFINE_PARAMS, engine="pallas",
+    ck = _aligner(TOY_RNA, TOY_RNA_NONAFFINE_PARAMS, engine="cuda",
                   lowmem=True)
     ck.optimize()
     ref.optimize()

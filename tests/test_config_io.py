@@ -26,7 +26,7 @@ def test_config_validation():
     with pytest.raises(ValueError):
         AlignConfig(max_shift=-1)
     with pytest.raises(ValueError):
-        AlignConfig(engine="cuda")
+        AlignConfig(engine="pallas")
 
 
 def test_config_affine_property():

@@ -1,10 +1,10 @@
-"""Conveyor-packed batched fill + codes-input serving path.
+"""Codes-input serving path and the device table builders.
 
-The conveyor streams a bucket's pairs through ONE slab, phase-offset by
-T0 global steps (ops/pallas_dp conveyor section) — these tests pin its
-bit-exactness against the reference-order numpy oracle on ragged
-buckets, across max_shift 0/1/2 and both recurrences, plus the
-codes-input path (device LUT table build) against the tables path.
+The codes path ships O(n) code vectors and one LUT and builds the score
+tables on the device (ops/device_tables.py); these tests pin it against
+the per-pair BiAligner (scores and traces, with and without a mesh), the
+builders' shear and shift primitives against their index definitions,
+and the guards that keep the f32 LUT contraction exact.
 """
 
 import numpy as np
@@ -13,12 +13,11 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from bialign_tpu.ops import pallas_dp, reference_dp
+from bialign_tpu.ops import device_tables
 from bialign_tpu.parallel import batch as pbatch
 from bialign_tpu.parallel.driver import PairRecord, StreamingAligner
 
 AFF = (-150, -50, -150)
-NONAFF = (-200, -250)
 
 
 def _rand_pair(rng, n, m):
@@ -31,71 +30,13 @@ def _rand_pair(rng, n, m):
     return mu1, mu2
 
 
-def _oracle(pairs, S, params, affine):
-    out = []
-    for mu1, mu2 in pairs:
-        n, m = mu1.shape[0] - 1, mu1.shape[1] - 1
-        if affine:
-            H = reference_dp.fill_affine(mu1, mu2, S, *params)
-            out.append(reference_dp.affine_score_from_band(H, n, m, S))
-        else:
-            H = reference_dp.fill_nonaffine(mu1, mu2, S, *params)
-            out.append(reference_dp.nonaffine_score_from_band(H, n, m, S))
-    return np.asarray(out)
-
-
-def _conveyor_scores(pairs, S, params, affine):
-    N = max(p[0].shape[0] - 1 for p in pairs)
-    M = max(p[0].shape[1] - 1 for p in pairs)
-    N = ((N + 7) // 8) * 8
-    M = ((M + 7) // 8) * 8
-    mu1p = pbatch.stack_padded([p[0] for p in pairs], N, M, 0)
-    mu2p = pbatch.stack_padded([p[1] for p in pairs], N, M, 0)
-    ns = np.asarray([p[0].shape[0] - 1 for p in pairs], np.int32)
-    ms = np.asarray([p[0].shape[1] - 1 for p in pairs], np.int32)
-    m1, m2 = pallas_dp._lane_pad_rows(jnp.asarray(mu1p),
-                                      jnp.asarray(mu2p))
-    T0 = pallas_dp._conveyor_T0(M, S)
-    return np.asarray(jax.device_get(pallas_dp._pallas_batched_conveyor(
-        m1, m2, jnp.asarray(ns), jnp.asarray(ms), T0, S, tuple(params),
-        affine,
-    )))
-
-
-@pytest.mark.parametrize("S", [0, 1, 2])
-def test_conveyor_affine_matches_oracle(S):
-    rng = np.random.default_rng(10 + S)
-    pairs = [_rand_pair(rng, rng.integers(6, 20), rng.integers(6, 20))
-             for _ in range(5)]
-    got = _conveyor_scores(pairs, S, AFF, True)
-    assert (got == _oracle(pairs, S, AFF, True)).all()
-
-
-@pytest.mark.parametrize("S", [1, 2])
-def test_conveyor_nonaffine_matches_oracle(S):
-    rng = np.random.default_rng(20 + S)
-    pairs = [_rand_pair(rng, rng.integers(6, 18), rng.integers(6, 18))
-             for _ in range(4)]
-    got = _conveyor_scores(pairs, S, NONAFF, False)
-    assert (got == _oracle(pairs, S, NONAFF, False)).all()
-
-
-def test_conveyor_single_pair_and_identical_lengths():
-    rng = np.random.default_rng(31)
-    pairs = [_rand_pair(rng, 12, 12) for _ in range(3)]
-    got = _conveyor_scores(pairs, 1, AFF, True)
-    assert (got == _oracle(pairs, 1, AFF, True)).all()
-    one = _conveyor_scores(pairs[:1], 1, AFF, True)
-    assert one[0] == got[0]
-
-
 def test_skew_and_shift_primitives():
     """_skew (pad+reshape shear) and _shifted against their index
     definitions — these carry every gather-free table build."""
     rng = np.random.default_rng(2)
     a = rng.integers(-50, 50, (5, 7)).astype(np.int32)
     for D_pad in (7, 9, 16, 30):
-        got = np.asarray(pallas_dp._skew(jnp.asarray(a), D_pad))
+        got = np.asarray(device_tables.skew(jnp.asarray(a), D_pad))
         assert got.shape == (5, D_pad)
         for i in range(5):
             for d in range(D_pad):
@@ -103,7 +44,7 @@ def test_skew_and_shift_primitives():
                 assert got[i, d] == want, (i, d)
     for dk in (-2, 0, 1):
         for dl in (-1, 0, 2):
-            got = np.asarray(pallas_dp._shifted(jnp.asarray(a), dk, dl))
+            got = np.asarray(device_tables.shifted(jnp.asarray(a), dk, dl))
             for i in range(5):
                 for j in range(7):
                     want = (a[i + dk, j + dl]
@@ -112,39 +53,81 @@ def test_skew_and_shift_primitives():
                     assert got[i, j] == want, (dk, dl, i, j)
 
 
-def test_conveyor_capture_collision_regression(monkeypatch):
-    """Two equal-n pairs whose m differ by almost the bucket M capture
-    into the SAME accumulator slot only T0 - (m0 - m1) steps apart;
-    with the TPU chunk size G=16 (forced here — interpret mode
-    otherwise uses G=1) the captures must still land in different grid
-    steps or pair 0 silently returns pair 1's score.  _conveyor_T0's
-    +_CHUNK_CAP term guarantees the separation; this reproduces the
-    review-caught failure ((150,64)+(150,3) returned pair 1's score
-    for both before the fix)."""
-    rng = np.random.default_rng(40)
-    monkeypatch.setattr(pallas_dp, "_pick_chunk",
-                        lambda *a, **k: 16)
-    pairs = [_rand_pair(rng, 150, 64), _rand_pair(rng, 150, 3)]
-    got = _conveyor_scores(pairs, 1, AFF, True)
-    want = _oracle(pairs, 1, AFF, True)
+@pytest.mark.parametrize("S", [0, 1, 2])
+def test_diag_tables_match_host_builder(S):
+    """The device diagonal-table build equals the host numpy build on
+    every cell a genuine lattice row reads (0 <= j <= m)."""
+    from bialign_tpu.ops import xla_dp
+
+    rng = np.random.default_rng(50 + S)
+    mu1, mu2 = _rand_pair(rng, 9, 13)
+    n, m = 9, 13
+    D = n + m + 1
+    h1, h2 = (np.asarray(t) for t in xla_dp._diag_mu_tables(mu1, mu2, S))
+    d1, d2 = (np.asarray(t) for t in device_tables.diag_tables(
+        jnp.asarray(mu1), jnp.asarray(mu2), S, D))
+    assert d1.shape == h1.shape and d2.shape == h2.shape
+    d_ = np.arange(D)[:, None]
+    i_ = np.arange(n + 1)[None, :]
+    live = (d_ - i_ >= 0) & (d_ - i_ <= m)
+    assert (d1[live] == h1[live]).all()
+    assert (d2[live] == h2[live]).all()
+
+
+@pytest.mark.parametrize("S", [0, 2])
+def test_codes_scores_shift_extremes_both_recurrences(S):
+    """Codes-path scores at max_shift 0 and 2, affine and non-affine, vs
+    the oracle on the host-built tables."""
+    import random
+
+    from bialign_tpu import BiAligner
+
+    recs = _protein_records(random.Random(20 + S), 5)
+    for params in (dict(PARAMS, max_shift=S),
+                   dict(PARAMS, max_shift=S, gap_opening_cost=0)):
+        sa = StreamingAligner(params, chunk_pairs=5, bucket_quantum=8,
+                              codes=True)
+        got = dict(sa.run(iter(recs)))
+        for r in recs:
+            ba = BiAligner(r.seqA, r.seqB, r.strA, r.strB, engine="numpy",
+                           **params)
+            assert got[r.id] == ba.optimize(), (S, r.id)
+
+
+def test_codes_scores_match_tables_path():
+    """dispatch_score_batch_codes on 100-160 aa DNA-Pol windows == the
+    tables-input score_batch on host-built tables."""
+    import random
+
+    from bialign_tpu.data import example_path
+    from bialign_tpu.io.cfssp import read_molecule_from_file
+    from bialign_tpu.models.molecule import preprocess_molecule
+    from bialign_tpu.scoring.tables import _sim_lut, build_score_tables
+
+    sA, tA = read_molecule_from_file(
+        example_path("DNAPolymerase1_Escherichia.cfssp"), "Protein")
+    sB, tB = read_molecule_from_file(
+        example_path("DNAPolymerase1_Xanthomonas.cfssp"), "Protein")
+    rng = random.Random(9)
+    params = dict(PARAMS)
+    pairs, tables = [], []
+    for _ in range(3):
+        la = rng.randint(100, 160)
+        a0 = rng.randint(0, len(sA) - la)
+        lb = la + rng.randint(-8, 8)
+        b0 = rng.randint(0, len(sB) - lb)
+        a, sa_ = sA[a0:a0 + la], tA[a0:a0 + la]
+        b, sb_ = sB[b0:b0 + lb], tB[b0:b0 + lb]
+        pairs.append(pbatch.encode_pair(a, b, sa_, sb_))
+        tables.append(build_score_tables(
+            preprocess_molecule(a, sa_, is_rna=False),
+            preprocess_molecule(b, sb_, is_rna=False), params,
+            is_rna=False))
+    lut, _ = _sim_lut("BLOSUM62")
+    got = pbatch.dispatch_score_batch_codes(
+        pairs, 1, AFF, affine=True, lut=lut, structure_weight=800).get()
+    want = pbatch.score_batch(tables, 1, AFF, affine=True)
     assert (got == want).all(), (got, want)
-
-
-def test_conveyor_safety_cert():
-    """Adversarial params must push the routing off the conveyor
-    (garbage-drift int32 cert), never produce wrong scores."""
-    huge = (-(10 ** 6), -(10 ** 6), -(10 ** 6))
-    assert pallas_dp._conveyor_safe_T(huge, True) < 1000
-    assert not pallas_dp._use_conveyor(
-        True, 64, 4 * pallas_dp.LANES, huge, True,
-        pallas_dp._conveyor_T0(512, 1),
-    )
-    # routing still yields exact scores through the fallback kernel
-    rng = np.random.default_rng(7)
-    pairs = [_rand_pair(rng, 9, 9) for _ in range(3)]
-    got = pbatch.score_batch(pairs, 1, huge, affine=True,
-                             bucket_quantum=8, engine="pallas")
-    assert (got == _oracle(pairs, 1, huge, True)).all()
 
 
 def _protein_records(rng, k, lo=6, hi=14):

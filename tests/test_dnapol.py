@@ -67,9 +67,8 @@ FULL_MD5 = {
 
 @pytest.mark.skipif(
     not os.environ.get("BIALIGN_SLOW_TESTS"),
-    reason="full 928x933 pair; set BIALIGN_SLOW_TESTS=1 (re-proven at "
-    "HEAD every round by tpucheck.py's dnapol_full_928x933 case — see "
-    "TPUCHECK_r0N.json: SCORE 761500 + all md5 anchors)",
+    reason="full 928x933 pair; set BIALIGN_SLOW_TESTS=1 (chip_smoke.py "
+    "checks SCORE 761500 and every md5 anchor on the GPU)",
 )
 def test_dnapol_full_md5(dnapol):
     """Full-pair parity: SCORE 761500 + SURVEY.md §8 per-row md5 anchors."""

@@ -3,17 +3,18 @@
 The parametrized engine tests pin a handful of realistic parameter
 settings; this sweep drives the case algebra through adversarial
 regimes too (positive shift rewards, zero gap costs, asymmetric
-magnitudes), asserting the XLA scan and the Pallas kernel (interpret
-mode) stay bit-exact with the numpy oracle on score, trace, and the
+magnitudes), asserting the lone-pair XLA scan and the bucketed corpus path stay
+bit-exact with the numpy oracle on score, trace, and the
 traceback-completeness flag.
 """
 
 import numpy as np
 import pytest
 
-from bialign_tpu.ops import pallas_dp, reference_dp, xla_dp
+from bialign_tpu.ops import reference_dp, xla_dp
 from bialign_tpu.ops import traceback as host_tb
 from bialign_tpu.ops import device_traceback as dtb
+from bialign_tpu.parallel import batch as pbatch
 
 
 def _case(seed):
@@ -44,10 +45,11 @@ def test_fuzz_affine_engines_bit_exact(seed):
     xtr, xc = dtb.affine_traceback(xband, beta, gamma, delta, mu1, mu2)
     assert (xtr, xc) == (want_tr, want_c), seed
 
-    pband = pallas_dp.fill_affine_device(mu1, mu2, S, beta, gamma, delta)
-    assert pband.final_score() == want_score, seed
-    ptr, pc = dtb.affine_traceback(pband, beta, gamma, delta, mu1, mu2)
-    assert (ptr, pc) == (want_tr, want_c), seed
+    scores, traces, comps = pbatch.align_batch(
+        [(mu1, mu2)], S, (beta, gamma, delta), affine=True,
+        bucket_quantum=16)
+    assert scores[0] == want_score, seed
+    assert (traces[0], comps[0]) == (want_tr, want_c), seed
 
 
 @pytest.mark.parametrize("seed", range(12, 20))
@@ -62,7 +64,7 @@ def test_fuzz_nonaffine_engines_bit_exact(seed):
     assert dtb.nonaffine_traceback(xband, gamma, delta, mu1, mu2) \
         == want_tr, seed
 
-    pband = pallas_dp.fill_nonaffine_device(mu1, mu2, S, gamma, delta)
-    assert pband.final_score() == want_score, seed
-    assert dtb.nonaffine_traceback(pband, gamma, delta, mu1, mu2) \
-        == want_tr, seed
+    scores, traces, _ = pbatch.align_batch(
+        [(mu1, mu2)], S, (gamma, delta), affine=False, bucket_quantum=16)
+    assert scores[0] == want_score, seed
+    assert traces[0] == want_tr, seed

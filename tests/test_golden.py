@@ -12,7 +12,8 @@ from bialign_tpu import BiAligner
 
 from bialign_tpu.ops import native_dp
 
-ENGINES = ["numpy", "xla", "pallas"]
+# "auto" is the platform's choice (xla on the CPU test tier)
+ENGINES = ["numpy", "xla", "auto"]
 if native_dp.available():
     ENGINES.append("native")
 
